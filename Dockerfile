@@ -1,14 +1,14 @@
-# Container image for the TPU-native QKD LDPC framework.
+# Container image for the QKD LDPC framework on NVIDIA GPUs.
 #
 # Mirrors the reference's deployment contract (Dockerfile + docker-compose
-# with configs/matrices/results volumes) for the TPU runtime: a slim Python
-# base with jax[tpu] and the package installed, the native host-side helper
-# library pre-built, and the CLI as the entrypoint. On a Cloud TPU VM the
-# container must run with --privileged (or the TPU device plugin) so libtpu
-# can reach the accelerator; off-TPU the same image runs on the CPU backend
-# (JAX_PLATFORMS=cpu).
+# with configs/matrices/results volumes): a slim Python base with the CUDA
+# build of JAX (jax[cuda12], which brings its own CUDA libraries) and the
+# package installed, the native host-side helper library pre-built, and the
+# CLI as the entrypoint. Run it with the NVIDIA container runtime
+# (`docker run --gpus all ...`); without a GPU the same image runs on the
+# CPU backend (JAX_PLATFORMS=cpu).
 
-FROM python:3.11-slim AS builder
+FROM python:3.12-slim AS builder
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
     g++ make \
@@ -26,15 +26,14 @@ RUN make -C native \
     && pip wheel --no-deps -w /app/dist .
 
 
-FROM python:3.11-slim AS runtime
+FROM python:3.12-slim AS runtime
 
 WORKDIR /app
 
 COPY --from=builder /app/dist/*.whl /tmp/
 COPY --from=builder /app/native/libqkdldpc_native.so /app/native/
 
-RUN pip install --no-cache-dir /tmp/*.whl "jax[tpu]" \
-    -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
+RUN pip install --no-cache-dir /tmp/*.whl "jax[cuda12]" \
     && rm /tmp/*.whl
 
 ENV QKDLDPC_NATIVE_LIB=/app/native/libqkdldpc_native.so

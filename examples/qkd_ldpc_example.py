@@ -8,7 +8,7 @@ matrix, SPA decoding with an LLR threshold of 100, full tracing.
 Run: ``python examples/qkd_ldpc_example.py``
 
 Two decodes are shown: the reference-exact traced f64 oracle (the same
-trajectory the C++ example prints), then the batched TPU decoder on the same
+trajectory the C++ example prints), then the batched device decoder on the same
 frame, demonstrating they agree.
 """
 
@@ -66,7 +66,7 @@ def main() -> int:
         matrix, alice, bob, qber, cfg
     )
 
-    print("\n=== Batched TPU decoder on the same frame ===")
+    print("\n=== Batched device decoder on the same frame ===")
     import jax.numpy as jnp
 
     layout = layout_for(matrix)

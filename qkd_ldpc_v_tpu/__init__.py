@@ -1,12 +1,12 @@
-"""qkd_ldpc_v_tpu — TPU-native QKD LDPC information-reconciliation framework.
+"""qkd_ldpc_v_tpu — batched QKD LDPC information-reconciliation framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
-C++ simulator (ColdCloudd/QKD_LDPC_V): LDPC-based information reconciliation
+A ground-up JAX/XLA re-design of the capabilities of the reference C++
+simulator (ColdCloudd/QKD_LDPC_V): LDPC-based information reconciliation
 for Quantum Key Distribution, with six belief-propagation decoder variants,
 code-rate adaptation by puncturing/shortening, privacy maintenance, and a
 Monte-Carlo sweep driver.
 
-Design principles (TPU-first, not a port):
+Design principles (accelerator-first, not a port):
   * Decode a *batch* of frames simultaneously: the parity-check matrix is
     compiled once into padded, static-shape edge-index tables; every decoder
     becomes gathers + masked reductions inside one ``lax.while_loop`` with

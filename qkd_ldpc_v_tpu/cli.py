@@ -35,7 +35,7 @@ CONFIG FILE REFERENCE (JSON; one file = one simulation run)
 
 Core keys (all required, as in the reference schema):
   threads_number                int >= 1. Kept for schema compatibility; the
-                                TPU driver decodes trials as device batches
+                                driver decodes trials as device batches
                                 (see tpu.batch_size below).
   trials_number                 int >= 1. Monte-Carlo trials per sweep point.
   use_config_simulation_seed    bool. true -> use simulation_seed; false ->
@@ -72,7 +72,7 @@ Core keys (all required, as in the reference schema):
                                   2 sparse_1 (MacKay/PEG, 1-based rows)
                                   3 sparse_2 ("N M" header, rows then cols)
                                   4 quasi-cyclic base-graph shifts
-                                    (TPU extension; directory matrices_qc)
+                                    (extension; directory matrices_qc)
   trace_qkd_ldpc                bool. Dump protocol-level tensors.
   trace_decoding_algorithm      bool. Dump per-iteration decoder tensors.
   trace_decoding_algorithm_llr  bool. Track the max-|LLR| watermark.
@@ -93,26 +93,19 @@ Core keys (all required, as in the reference schema):
     false -> code_rate_QBER_adaptation_parameters_maps:
              [{code_rate, QBER, delta, efficiency}] explicit points.
 
-TPU extensions (optional "tpu" object; defaults keep reference semantics):
+Extensions (optional "tpu" object; defaults keep reference semantics):
   tpu.batch_size                int. Frames decoded per device program
                                 (0 = all trials at once).
   tpu.dtype                     float32 | float64 | bfloat16. Decoder message
                                 precision (float64 = reference-parity mode).
-  tpu.use_pallas                bool. Route matrices through the fused
-                                Pallas decoder engines (QC, generic, or
-                                streaming — picked by feasibility).
   tpu.phase1_iterations         int. Exact two-phase straggler re-decode:
                                 -1 auto (cap/2 when cap >= 64), 0 off,
                                 >0 explicit phase-1 cap.
   tpu.schedule                  flooding | layered. "layered" (serial-C)
                                 halves decoding sweeps at equal-or-better
-                                FER (fused QC kernel, NMSA/OMSA only;
+                                FER (QC matrices, min-sum family only;
                                 otherwise warns and floods). "flooding"
                                 is the reference's schedule.
-  tpu.force_engine              qc | qc_stream | generic | stream | xla.
-                                Pins one decoder engine for A/B
-                                measurement (errors if it cannot serve
-                                the matrix); absent = feasibility-gated.
 
 Results: one CSV per config in the results directory, semicolon-separated
 with comma decimal marks; filename encodes trials, algorithm, iteration cap,
@@ -124,8 +117,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qkd-ldpc-tpu",
         description=(
-            "TPU-native Monte-Carlo simulator of LDPC information "
-            "reconciliation for QKD."
+            "Batched Monte-Carlo simulator of LDPC information "
+            "reconciliation for QKD (JAX)."
         ),
     )
     p.add_argument(

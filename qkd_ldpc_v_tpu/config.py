@@ -16,10 +16,13 @@ from __future__ import annotations
 
 import enum
 import json
+import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
+
+logger = logging.getLogger("qkd_ldpc_v_tpu")
 
 EPSILON = 1e-6  # step/range sanity slack (reference: src/config.hpp:199)
 
@@ -61,7 +64,7 @@ class MatrixFormat(enum.IntEnum):
     ALIST = 1
     SPARSE_1 = 2  # MacKay/PEG: N / M / max-row-weight header, 1-based rows
     SPARSE_2 = 3  # "N M" header, 0-based rows then columns
-    QC = 4  # quasi-cyclic base-graph shifts (TPU extension; models/qc.py)
+    QC = 4  # quasi-cyclic base-graph shifts (extension; models/qc.py)
 
     @property
     def display_name(self) -> str:
@@ -70,7 +73,7 @@ class MatrixFormat(enum.IntEnum):
             MatrixFormat.ALIST: "Sparse (alist)",
             MatrixFormat.SPARSE_1: "Sparse (1)",
             MatrixFormat.SPARSE_2: "Sparse (2)",
-            MatrixFormat.QC: "Quasi-cyclic (TPU extension)",
+            MatrixFormat.QC: "Quasi-cyclic (extension)",
         }[self]
 
     @property
@@ -176,8 +179,8 @@ class RQBERAdaptationParametersMap:
 class Config:
     """Immutable run configuration (reference: src/config.hpp:103-196).
 
-    ``threads_number`` is kept for schema compatibility; on TPU the analogue
-    is the frame-batch size / device mesh, see ``batch_size`` extensions.
+    ``threads_number`` is kept for schema compatibility; on the device the
+    analogue is the frame-batch size / device mesh, see ``batch_size``.
     """
 
     threads_number: int = 1
@@ -204,22 +207,21 @@ class Config:
     r_adapt_params_ranges: Tuple[RAdaptationParametersRange, ...] = ()
     r_qber_adapt_params_maps: Tuple[RQBERAdaptationParametersMap, ...] = ()
 
-    # --- TPU-native extensions (absent from the reference schema; optional
-    # keys "tpu": {...} in the JSON, defaulted so every reference config
-    # parses unchanged) ---
+    # --- Extensions (absent from the reference schema; optional keys
+    # "tpu": {...} in the JSON — the block keeps its historical name —
+    # defaulted so every reference config parses unchanged) ---
     batch_size: int = 0  # 0 => decode all trials of a combination at once
     # Decoder message dtype: float32 | float64 | bfloat16. float64 is the
     # reference-exact parity mode; bfloat16 halves message bandwidth (SPA in
     # bf16 requires enable_msg_llr_threshold: bf16 tanh saturates at
     # |LLR| ~ 9 and atanh(1) = inf — see tests/test_decoders.py).
     dtype: str = "float32"
-    use_pallas: bool = False  # opt into fused Pallas kernels where available
     # Message-passing schedule: "flooding" is the reference's (parity
-    # contract); "layered" (serial-C) is a performance mode — the fused QC
-    # kernel processes block-rows in sequence, updating bit totals within
-    # the sweep, converging in ~half the iterations at equal-or-better FER
-    # (min-sum family; the adaptive pair's factor uses *current* decisions.
-    # SPA and the other engines warn and flood).
+    # contract); "layered" (serial-C) is a performance mode for QC codes —
+    # block-rows in sequence, bit totals updated within the sweep, about
+    # half the sweeps at equal-or-better FER (min-sum family; the adaptive
+    # pair's factor uses *current* decisions; anything else warns and
+    # floods). See ops/qc_decoder.py.
     schedule: str = "flooding"
     # Two-phase straggler re-decode: phase 1 runs the whole batch to this
     # iteration cap; unconverged frames are re-decoded from scratch in a
@@ -227,17 +229,7 @@ class Config:
     # (BP from the same init is deterministic), but the big batch stops
     # dragging at the cap for a few stragglers. -1 = auto (cap // 2 when the
     # cap is >= 64, else disabled), 0 = disabled, >0 = explicit phase-1 cap.
-    # Applies to the XLA engines; under use_pallas only the streaming
-    # engine honors it (explicit > 0 only — its per-group early exit runs
-    # to the slowest frame of each group, which phase 1 clips). Measured
-    # at the N=102400 working point it is break-even-to-slower (re-decode
-    # restarts from scratch; BASELINE.md) — prefer 0 there.
     phase1_iterations: int = -1
-    # Engine override for A/B measurement: "" (default) keeps the
-    # feasibility-gated cascade (simulation.pallas_engine: qc -> qc_stream
-    # -> generic -> stream -> xla); naming an engine forces it, and raises
-    # if that engine cannot serve the matrix (no silent fallback).
-    force_engine: str = ""
 
 
 def _range_values(begin: float, end: float, step: float) -> Tuple[float, ...]:
@@ -414,8 +406,8 @@ def parse_config_data(config_path) -> Config:
     if matrix_format_idx > MatrixFormat.QC:
         raise ConfigError(
             "Only five options are available: \n0 - uncompressed;\n1 - sparse "
-            "alist;\n2 - sparse_1;\n3 - sparse_2;\n4 - quasi-cyclic (TPU "
-            "extension)."
+            "alist;\n2 - sparse_1;\n3 - sparse_2;\n4 - quasi-cyclic "
+            "(extension)."
         )
     matrix_format = MatrixFormat(matrix_format_idx)
 
@@ -568,22 +560,27 @@ def parse_config_data(config_path) -> Config:
             # grouped-map lookups (src/config.cpp:389-394).
             r_qber_adapt_params_maps.sort(key=lambda m: m.code_rate)
 
-    tpu = config.get("tpu", {})
-    batch_size = int(tpu.get("batch_size", 0))
-    dtype = str(tpu.get("dtype", "float32"))
+    ext = config.get("tpu", {})
+    batch_size = int(ext.get("batch_size", 0))
+    dtype = str(ext.get("dtype", "float32"))
     if dtype not in ("float32", "float64", "bfloat16"):
         raise ConfigError("tpu.dtype must be one of float32|float64|bfloat16")
-    use_pallas = bool(tpu.get("use_pallas", False))
-    phase1_iterations = int(tpu.get("phase1_iterations", -1))
-    schedule = str(tpu.get("schedule", "flooding"))
+    phase1_iterations = int(ext.get("phase1_iterations", -1))
+    schedule = str(ext.get("schedule", "flooding"))
     if schedule not in ("flooding", "layered"):
         raise ConfigError("tpu.schedule must be flooding|layered")
-    force_engine = str(tpu.get("force_engine", ""))
-    if force_engine not in ("", "qc", "qc_stream", "generic", "stream",
-                            "xla"):
+    # Retired engine keys: older configs carry them, so they still parse.
+    if "use_pallas" in ext:
+        logger.warning(
+            "%s: tpu.use_pallas selects nothing; the XLA decoders serve "
+            "every matrix.", config_path.name,
+        )
+    force_engine = str(ext.get("force_engine", ""))
+    if force_engine not in ("", "xla"):
         raise ConfigError(
-            "tpu.force_engine must be one of "
-            "qc|qc_stream|generic|stream|xla (or absent)"
+            f"tpu.force_engine = {force_engine!r}: the qc, qc_stream, "
+            "generic and stream engines were removed; only \"xla\" (or "
+            "absent) is accepted"
         )
 
     return Config(
@@ -612,10 +609,8 @@ def parse_config_data(config_path) -> Config:
         r_qber_adapt_params_maps=tuple(r_qber_adapt_params_maps),
         batch_size=batch_size,
         dtype=dtype,
-        use_pallas=use_pallas,
         phase1_iterations=phase1_iterations,
         schedule=schedule,
-        force_engine=force_engine,
     )
 
 

@@ -1,6 +1,6 @@
 """Degree-grouped edge layout: HMatrix -> static, zero-waste device tables.
 
-This is the structural inversion that makes the decoders TPU-native. The
+This is the structural inversion that makes the decoders batch-native. The
 reference walks jagged per-node message arrays one frame at a time
 (reference: src/qkd_ldpc_algorithm.cpp:21-44); we decode a *batch* of frames
 over fixed-shape tables instead. A naive padded layout would be hostile to

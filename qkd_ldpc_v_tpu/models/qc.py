@@ -1,15 +1,14 @@
 """Quasi-cyclic (QC) LDPC codes: generation and block structure.
 
 The reference decodes arbitrary sparse matrices from files; its production
-suites are PEG-style random codes (sparse_matrices/*). On TPU the expensive
-operation in belief propagation is the edge permutation between check-major
+suites are PEG-style random codes (sparse_matrices/*). On an accelerator the
+expensive operation in belief propagation is the edge permutation between check-major
 and bit-major message order — an arbitrary gather for random codes. QC-LDPC
 codes (the industry-standard structure: 5G NR, 802.11, DVB-S2) replace that
 gather with **per-block cyclic rolls**: H is an (mb x nb) grid of Z x Z
 circulants, so regrouping messages is a static block permutation (tiny)
 plus a static cyclic shift per block — which XLA executes as two contiguous
-slices at full HBM bandwidth and a Pallas kernel executes for free as offset
-indexing.
+slices, or as a row gather with a per-block offset.
 
 Convention: base entry (r, c) with shift s >= 0 contributes edges
 check (r*Z + i) <-> bit (c*Z + j) with j = (i + s) mod Z. Entry -1 = no
@@ -308,8 +307,8 @@ def generate_qc_peg(
 
 def write_qc_matrix(qc: QCMatrix, path) -> None:
     """Write the base-graph shift table: header "mb nb Z", then mb rows of
-    nb shifts (-1 = absent block). TPU-extension format (the reference has
-    no QC format; these files live under sparse_matrices/matrices_qc/)."""
+    nb shifts (-1 = absent block). This repo's extension format (the
+    reference has no QC format; these files live under sparse_matrices/matrices_qc/)."""
     from pathlib import Path
 
     lines = [f"{qc.base_checks} {qc.base_bits} {qc.lifting}"]

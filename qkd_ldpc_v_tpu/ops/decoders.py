@@ -9,11 +9,10 @@ degree-grouped edge layout in **batch-minor** orientation: message state is
 
   * the inter-enumeration regroup — the only irregular memory access in the
     decoder — is a *row* gather (`take(..., axis=0)`) moving contiguous
-    B-sized lines, which the TPU executes at near-HBM bandwidth, unlike an
-    element gather along a minor axis;
+    B-sized lines, unlike an element gather along a minor axis;
   * each degree group's check/bit pass is a contiguous row-slice reshaped to
     ``[count, degree, B]`` with the reduction over the middle axis, keeping
-    the 128-lane batch dimension innermost for the VPU.
+    the batch dimension innermost and contiguous.
 
 Per iteration (everything static-shape, inside one ``lax.while_loop``):
   1. check pass per degree group (tanh-product or two-minimum/sign-parity),
@@ -85,14 +84,11 @@ def _sum_terms(init: jax.Array, terms: jax.Array, exact: bool) -> jax.Array:
     the reference's sequential order (std::accumulate starting from the
     channel LLR, src/qkd_ldpc_algorithm.cpp:78).
 
-    The f32 path used ``init + jnp.sum(terms)`` before round 5; XLA's
-    lowering of that reduce is backend-dependent (TPU reassociates it to
-    the sequential-from-init order under --xla_allow_excess_precision,
-    CPU does not), which made "bit-exact vs the XLA decoder" a
-    platform-dependent claim at ulp-sensitive frames. Explicit sequential
-    accumulation pins one association — the same one every Pallas engine
-    uses — on every backend. Degrees are <= ~6, so the unrolled adds cost
-    what the reduce did."""
+    XLA's lowering of a ``jnp.sum`` reduce is backend-dependent (a backend
+    may reassociate it), which would make "bit-exact" a platform-dependent
+    claim at ulp-sensitive frames. Explicit sequential accumulation pins
+    one association — the same one the QC decoders use — on every backend.
+    Degrees are <= ~6, so the unrolled adds cost what the reduce did."""
     acc = init
     for s in range(terms.shape[1]):
         acc = acc + terms[:, s, :]

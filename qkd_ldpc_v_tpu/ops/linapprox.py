@@ -3,8 +3,7 @@
 Same segment boundaries and coefficients as the reference
 (reference: src/qkd_ldpc_algorithm.cpp:146-172). Vectorized as a chain of
 ``jnp.where`` selects (first-true-wins, like the reference's if/else
-ladder); ``jnp.select`` would lower to an indexed select_n that Mosaic
-(Pallas TPU) cannot compile.
+ladder), which XLA fuses into one elementwise kernel.
 """
 
 from __future__ import annotations

@@ -241,3 +241,83 @@ def decode_oracle(
             _clamp_jagged(b2c, threshold)
 
     return decision.copy(), False, max_iterations
+
+
+def layered_oracle(
+    qc,
+    llr: np.ndarray,
+    syndrome: np.ndarray,
+    algorithm: int,
+    primary: float,
+    max_iterations: int,
+    secondary: float = 1.0,
+    threshold: Optional[float] = None,
+) -> Tuple[np.ndarray, int, bool]:
+    """Decode one frame of a QC code with the layered (serial-C) min-sum
+    schedule in float32. Returns (decision, iterations, syndromes_match).
+
+    The specification of ``ops.qc_decoder``'s layered decoder: base rows in
+    natural order, edges within a row in ascending column order. Each row
+    reads the current bit totals rolled into check alignment, updates its
+    check->bit messages (optionally clamped to +-``threshold``) and adds
+    their change back into the totals at once; the adaptive pair takes the
+    per-check factor from the decisions of those rolled totals. Convergence
+    is checked after each full sweep.
+    """
+    z, nb, mb = qc.lifting, qc.base_bits, qc.base_checks
+    rows = [
+        [(c, int(qc.shifts[r, c]) % z) for c in range(nb) if qc.shifts[r, c] >= 0]
+        for r in range(mb)
+    ]
+    f32 = np.float32
+    total = np.asarray(llr, f32).reshape(nb, z).copy()
+    c2b = [[np.zeros(z, f32) for _ in row] for row in rows]
+    synb = np.asarray(syndrome).reshape(mb, z)
+    big = f32(np.finfo(f32).max)
+    adaptive = algorithm in (4, 5)
+    normalized = algorithm in (2, 4)
+    dec = (total <= 0).astype(np.int8)
+    for it in range(1, max_iterations + 1):
+        for r, row in enumerate(rows):
+            rolled = [np.roll(total[c], -s) for (c, s) in row]
+            msgs = [rt - old for rt, old in zip(rolled, c2b[r])]
+            a = [np.abs(mm) for mm in msgs]
+            min1 = a[0].copy()
+            min2 = np.full(z, big)
+            for ai in a[1:]:
+                min2 = np.minimum(min2, np.maximum(min1, ai))
+                min1 = np.minimum(min1, ai)
+            neg = sum((mm < 0).astype(np.int32) for mm in msgs)
+            ss = np.where(synb[r] == 1, -1.0, 1.0).astype(f32)
+            row_sign = ss * np.where(neg % 2 == 0, 1.0, -1.0).astype(f32)
+            if adaptive:
+                acc = np.zeros(z, np.int32)
+                for rt in rolled:
+                    acc = acc ^ (rt <= 0).astype(np.int32)
+                f = np.where(acc ^ synb[r] != 0, f32(secondary),
+                             f32(primary)).astype(f32)
+            else:
+                f = f32(primary)
+            for k, ((c, s), mm, ai) in enumerate(zip(row, msgs, a)):
+                excl = np.where(mm > 0, 1.0, -1.0).astype(f32)
+                eabs = np.where(ai == min1, min2, min1)
+                if normalized:
+                    val = (f * row_sign * excl * eabs).astype(f32)
+                else:
+                    val = (row_sign * excl * np.maximum(eabs - f, f32(0))
+                           ).astype(f32)
+                if threshold is not None:
+                    val = np.clip(val, -f32(threshold), f32(threshold))
+                total[c] = (total[c] + np.roll(val - c2b[r][k], s)).astype(f32)
+                c2b[r][k] = val
+        dec = (total <= 0).astype(np.int8)
+        ok = True
+        for r, row in enumerate(rows):
+            acc = np.zeros(z, np.int8)
+            for (c, s) in row:
+                acc = acc ^ np.roll(dec[c], -s)
+            if not np.array_equal(acc, synb[r]):
+                ok = False
+        if ok:
+            return dec.reshape(-1), it, True
+    return dec.reshape(-1), max_iterations, False

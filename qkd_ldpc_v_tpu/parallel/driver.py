@@ -1,10 +1,10 @@
 """Data-parallel trial execution over a device mesh.
 
-Design (TPU-native replacement for the reference's thread pool,
+Design (device-batched replacement for the reference's thread pool,
 src/simulation.cpp:693-768):
 
-  * one mesh axis ``data`` spans all chips (ICI within a slice, DCN across
-    hosts after ``jax.distributed.initialize``);
+  * one mesh axis ``data`` spans all devices (every card of a host, and
+    other hosts after ``jax.distributed.initialize``);
   * the per-device program is *identical* to the single-chip trial step
     (simulation._build_step): key generation, exact-count error injection,
     frame extension, batched decode — all purely batch-local, so the decode
@@ -37,7 +37,7 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host bring-up (TPU pods / CPU fleets): thin wrapper over
+    """Multi-host bring-up (GPU hosts / CPU fleets): thin wrapper over
     ``jax.distributed.initialize`` so callers need no jax.distributed import.
     On single-process runs this is a no-op."""
     if num_processes is None or num_processes <= 1:
@@ -76,9 +76,8 @@ def sharded_step(
     axis. ``global_batch`` must divide evenly (callers round up; surplus
     frames are sliced off host-side exactly like a short final chunk).
 
-    The per-device program honors ``cfg.use_pallas`` exactly like the
-    single-device factory (the fused kernels are batch-local, so each shard
-    runs its own pallas grid). Two-phase straggler re-decode is the one
+    The per-device program is the single-device step (decoder and schedule
+    chosen the same way). Two-phase straggler re-decode is the one
     single-device feature the mesh path drops — it needs host-side straggler
     indices, which contradicts on-device aggregation; run_combination warns
     when a config would have used it.
@@ -106,7 +105,6 @@ def sharded_step(
         cfg.enable_code_rate_adaptation,
         local_batch,
         cfg.dtype,
-        use_pallas=cfg.use_pallas,
         schedule=cfg.schedule,
     )
 
@@ -184,7 +182,6 @@ def mesh_step_factory(mesh: Mesh, reduce_stats: bool = False) -> Callable:
             cfg.enable_code_rate_adaptation,
             global_batch,
             cfg.dtype,
-            cfg.use_pallas,
             cfg.schedule,
             reduce_stats,
         )
@@ -210,9 +207,9 @@ def psum_stats(syndromes_match, keys_match, iterations, axis_name: str = "data")
     ``iter_m2`` is the sum of squared deviations from the *global* mesh mean
     (Chan's parallel-variance formulation), not the raw sum of squares: the
     E[x^2]-E[x]^2 form loses its low bits to cancellation in float32 (the
-    real-TPU accumulation dtype) once chunks grow large, skewing
+    accumulation dtype without x64) once chunks grow large, skewing
     ITERATIONS_STD; deviations from the mean stay small and cancel nothing.
-    The extra psum is three scalar adds on the ICI per chunk."""
+    The extra psum is one more scalar all-reduce per chunk."""
     ok = syndromes_match
     okf = ok.astype(jnp.float64) if jax.config.jax_enable_x64 else ok.astype(jnp.float32)
     it = iterations.astype(okf.dtype)

@@ -50,24 +50,23 @@ def get_file_paths_in_directory(directory, extension: str) -> List[Path]:
     return sorted(p for p in directory.iterdir() if p.suffix == extension)
 
 
-def enable_compilation_cache(path: Optional[str] = None) -> None:
-    """Point JAX at a persistent XLA compilation cache.
+def enable_compilation_cache() -> None:
+    """Turn on JAX's persistent compilation cache.
 
-    First TPU compiles of the decoder while-loop cost minutes on this class
-    of hardware; the cache makes every subsequent process start fast. Safe to
-    call multiple times; ``QKDLDPC_CACHE_DIR`` overrides the default
-    ``~/.cache/qkd_ldpc_v_tpu/xla``.
+    The decoder's while-loop steps take seconds to compile, so every later
+    process with the same shapes starts faster. When ``JAX_COMPILATION_CACHE_DIR``
+    is set, JAX already caches there and nothing else is set. Otherwise the
+    cache lives at one fixed path inside the checkout, ``<repo>/.jax_cache``
+    (fixed because the path is part of the cache key). Safe to call more
+    than once.
     """
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
     import jax
 
-    path = (
-        path
-        or os.environ.get("QKDLDPC_CACHE_DIR")
-        or os.path.expanduser("~/.cache/qkd_ldpc_v_tpu/xla")
-    )
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    path = Path(__file__).resolve().parent.parent / ".jax_cache"
+    path.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(path))
 
 
 def format_duration(seconds: float) -> str:

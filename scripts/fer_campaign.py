@@ -4,7 +4,7 @@ Runs the framework's decoders over a grid of (code, QBER) points and writes
 a markdown table plus a CSV. Because the f64 path is A/B-verified bit-exact
 against the reference C++ (tests/test_reference_parity.py), the f32 curves
 produced here characterize the same decoders the reference implements, at
-TPU speed.
+device speed.
 
 Usage: python scripts/fer_campaign.py [--suite 10k|1k|100k]
        [--trials 4096] [--out docs/FER_CURVES.md]
@@ -21,12 +21,9 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import jax
 
-REF_ALIST = Path(
-    "/root/reference/sparse_matrices/matrices_alist_10k_all/"
-    "(N=10240,M=2841,R=0.72,CW=4,SEED=666).mtrx"
-)
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def main() -> int:
@@ -60,79 +57,56 @@ def main() -> int:
 
     root = Path(__file__).resolve().parent.parent
     mid = (0.02, 0.025, 0.03, 0.035, 0.04)
-    # (name, matrix, alpha, use_pallas, qber grid, batch)
+    alist_dir = root / "sparse_matrices/matrices_alist"
+    # (name, matrix, alpha, qber grid, batch)
     if args.suite == "10k":
         codes = [
             ("QC-PEG R=0.70 Z=512 CW=4 (headline)",
              generate_qc_peg(20, 6, 512, 4, seed=9).to_hmatrix(),
-             0.65, True, mid, args.trials),
+             0.65, mid, args.trials),
             ("QC-PEG R=0.725 Z=256 CW=4",
              generate_qc_peg(40, 11, 256, 4, seed=9).to_hmatrix(),
-             0.70, True, mid, args.trials),
+             0.70, mid, args.trials),
+            ("alist R=0.72 CW=4 (committed)",
+             read_sparse_matrix_alist(
+                 alist_dir / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx"),
+             0.80, mid, args.trials),
         ]
-        if REF_ALIST.exists():
-            codes.append(
-                ("reference alist R=0.72 CW=4 (PEG)",
-                 read_sparse_matrix_alist(REF_ALIST), 0.80, False,
-                 mid, args.trials)
-            )
     elif args.suite == "1k":
         low = (0.01, 0.015, 0.02, 0.025, 0.03)
         codes = [
             ("alist 1k R=0.72 CW=4 (committed)",
              read_sparse_matrix_alist(
-                 root / "sparse_matrices/matrices_alist"
-                 / "(N=1024,M=283,R=0.72,CW=4,SEED=6).mtrx"),
-             0.60, True, low, args.trials),
+                 alist_dir / "(N=1024,M=283,R=0.72,CW=4,SEED=6).mtrx"),
+             0.60, low, args.trials),
             ("alist 1k R=0.62 CW=3 (committed)",
              read_sparse_matrix_alist(
-                 root / "sparse_matrices/matrices_alist"
-                 / "(N=1024,M=384,R=0.62,CW=3,SEED=62).mtrx"),
-             0.70, True, (0.02, 0.03, 0.04, 0.05, 0.06), args.trials),
+                 alist_dir / "(N=1024,M=384,R=0.62,CW=3,SEED=62).mtrx"),
+             0.70, (0.02, 0.03, 0.04, 0.05, 0.06), args.trials),
         ]
-        ref_1k = Path(
-            "/root/reference/sparse_matrices/matrices_alist_1k_all/"
-            "(N=1024,M=284,R=0.72,CW=5,SEED=444).mtrx"
-        )
-        if ref_1k.exists():
-            codes.append(
-                ("reference alist 1k R=0.72 CW=5 (PEG)",
-                 read_sparse_matrix_alist(ref_1k), 0.60, True,
-                 low, args.trials)
-            )
     else:  # 100k
         qc_dir = root / "sparse_matrices/matrices_qc"
         codes = [
-            ("QC 100k R=0.70 Z=2048 CW=3 (streamed QC)",
+            ("QC 100k R=0.70 Z=2048 CW=3",
              read_matrix(qc_dir / "(N=102400,M=30720,R=0.70,CW=3,"
                          "Z=2048,SEED=56).mtrx", MatrixFormat.QC),
-             0.80, True, mid, 1024),
-            ("QC 100k R=0.84 Z=2048 CW=3 (streamed QC)",
+             0.80, mid, 1024),
+            ("QC 100k R=0.84 Z=2048 CW=3",
              read_matrix(qc_dir / "(N=102400,M=16384,R=0.84,CW=3,"
                          "Z=2048,SEED=57).mtrx", MatrixFormat.QC),
-             0.80, True, (0.005, 0.01, 0.0125, 0.015, 0.02), 1024),
-            ("QC 100k R=0.50 Z=2048 CW=3 (streamed QC)",
+             0.80, (0.005, 0.01, 0.0125, 0.015, 0.02), 1024),
+            ("QC 100k R=0.50 Z=2048 CW=3",
              read_matrix(qc_dir / "(N=102400,M=51200,R=0.50,CW=3,"
                          "Z=2048,SEED=58).mtrx", MatrixFormat.QC),
-             0.80, True, (0.06, 0.07, 0.08, 0.09, 0.10), 1024),
+             0.80, (0.06, 0.07, 0.08, 0.09, 0.10), 1024),
+            ("alist 100k R=0.69 CW=3",
+             read_sparse_matrix_alist(
+                 alist_dir / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx"),
+             0.80, mid, 256),
         ]
-        ref_100k = Path(
-            "/root/reference/sparse_matrices/matrices_alist_100k_all/"
-            "(N=102400,M=32001,R=0.69,CW=3,SEED=777).mtrx"
-        )
-        alist_100k = (
-            ref_100k if ref_100k.exists()
-            else root / "sparse_matrices/matrices_alist"
-            / "(N=102400,M=31744,R=0.69,CW=3,SEED=67).mtrx"
-        )
-        codes.append(
-            ("alist 100k R=0.69 CW=3 (streaming)",
-             read_sparse_matrix_alist(alist_100k), 0.80, True,
-             mid, 64)
-        )
 
     rows = []
-    for name, matrix, alpha, pallas, qbers, batch in codes:
+    for name, matrix, alpha, qbers, batch in codes:
         for q in qbers:
             cfg = Config(
                 trials_number=args.trials,
@@ -141,7 +115,6 @@ def main() -> int:
                 decoding_alg_max_iterations=100,
                 r_qber_ranges=(RQBERRange(0.99, q, q, 0.01),),
                 batch_size=batch,
-                use_pallas=pallas,
             )
             comb = SimCombination(
                 q, HMatrixParams(), ScalingFactors(primary=alpha)
@@ -158,11 +131,13 @@ def main() -> int:
                 file=sys.stderr, flush=True,
             )
 
+    device = jax.devices()[0]
     args.out.parent.mkdir(parents=True, exist_ok=True)
     lines = [
         "# FER vs QBER — NMSA, 100-iteration cap, exact-count channel",
         "",
-        f"{args.trials} trials per point, one TPU v5e chip, f32 decode",
+        f"{args.trials} trials per point, one {device.device_kind} "
+        f"({device.platform}), f32 decode",
         "(the f64 path is A/B-verified bit-exact against the reference C++;",
         "see PARITY.md). Generated by scripts/fer_campaign.py.",
         "",

@@ -15,25 +15,18 @@ scale") plus one JSON line per point.
 
 Usage: python scripts/fer_parity_campaign.py [trials] [--cpu]
          [--matrix=PATH] [--points=NAME:QBER,...] [--chunk=N]
-         [--qc] [--schedule=flooding[,layered]] [--check-stream]
+         [--qc] [--schedule=flooding[,layered]]
 
---matrix accepts any alist matrix; the framework engine is picked by
-feasibility (fused generic kernel, or the streaming HBM-resident kernel
-for giant frames like the reference's N=102400 suite). With --qc the
-matrix is read in the QC shift format, expanded to alist in a temp file
-for the C++ side (the reference has no QC reader), and decoded through
-the production fused QC kernel; --schedule accepts a comma list so one
+Both sides decode the driver's own channel realizations: each chunk's keys
+come from the same threefry keys the compiled trial step
+(``simulation.get_step``) uses, and the step then decodes them on the
+device. --matrix accepts any alist matrix. With --qc the matrix is read in
+the QC shift format and expanded to alist in a temp file for the C++ side
+(the reference has no QC reader); --schedule accepts a comma list so one
 pass over the expensive C++ side serves every schedule on identical
-channels. Layered rows compare the beyond-reference layered schedule's
-FER against the flooding C++ (frame agreement is then informational —
-the schedules converge on different frames near threshold).
---check-stream additionally runs every chunk through the streamed QC
-engine and asserts it against the fused kernel per the documented
-contract: (conv, keys, iters) exactly equal for layered (all
-algorithms) and non-adaptive flooding; for adaptive flooding
-(ANMSA/AOMSA, whose in-check factor feedback is accumulation-order
-sensitive) keys must agree on mutually-converged frames and the
-per-frame (conv & keys) agreement rate is reported.
+channels. Layered rows compare the beyond-reference layered schedule's FER
+against the flooding C++ (frame agreement is then informational — the
+schedules converge on different frames near threshold).
 """
 
 from __future__ import annotations
@@ -51,11 +44,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 ROOT = Path(__file__).resolve().parents[1]
 HARNESS = ROOT / "tools" / "reference_harness" / "ref_harness"
-MATRIX = Path(
-    "/root/reference/sparse_matrices/matrices_alist_10k_all/"
-    "(N=10240,M=2841,R=0.72,CW=4,SEED=666).mtrx"
-)
-N = 10240
+MATRIX = (ROOT / "sparse_matrices" / "matrices_alist"
+          / "(N=10240,M=2841,R=0.72,CW=4,SEED=66).mtrx")
 CHUNK = 1000
 
 POINTS = [
@@ -77,16 +67,6 @@ ALL_POINTS = POINTS + [
     (4, "ANMSA", 0.8, 0.6, 0.03),
     (5, "AOMSA", 0.5, 1.0, 0.035),
 ]
-
-
-def gen_channel(rng, batch, qber, n):
-    alice = rng.integers(0, 2, (batch, n)).astype(np.int8)
-    bob = alice.copy()
-    k = int(n * qber)
-    for b in range(batch):
-        pos = rng.permutation(n)[:k]
-        bob[b, pos] ^= 1
-    return alice, bob, k / n
 
 
 def run_reference(matrix_path, alg, primary, secondary, alice, bob, qber):
@@ -162,26 +142,23 @@ def main() -> int:
     from qkd_ldpc_v_tpu.utils import enable_compilation_cache
     enable_compilation_cache()
 
-    from qkd_ldpc_v_tpu.config import DecodingAlgorithm
-    from qkd_ldpc_v_tpu.models.hmatrix import read_sparse_matrix_alist
-    from qkd_ldpc_v_tpu.ops.pallas_generic import (
-        generic_plan_feasible,
-        make_pallas_generic_trial,
-    )
-    from qkd_ldpc_v_tpu.ops.pallas_stream import make_pallas_stream_trial
+    import jax.numpy as jnp
 
-    interpret = jax.default_backend() == "cpu"
+    from qkd_ldpc_v_tpu.config import Config, DecodingAlgorithm
+    from qkd_ldpc_v_tpu.models.hmatrix import read_sparse_matrix_alist
+    from qkd_ldpc_v_tpu.ops.channel import (
+        exact_error_count, generate_keys, inject_errors, trial_keys,
+    )
+    from qkd_ldpc_v_tpu.rate_adapt import HMatrixParams
+    from qkd_ldpc_v_tpu.simulation import get_step, make_frame_plan
+
     use_qc = "--qc" in sys.argv
     schedules = opts.get("schedule", "flooding").split(",")
-    check_stream = "--check-stream" in sys.argv
     if use_qc:
         import tempfile
 
         from qkd_ldpc_v_tpu.config import MatrixFormat
         from qkd_ldpc_v_tpu.models.hmatrix import read_matrix, write_alist
-        from qkd_ldpc_v_tpu.ops.pallas_qc import (
-            feasible_batch_tile, make_pallas_qc_trial,
-        )
 
         matrix = read_matrix(matrix_path, MatrixFormat.QC)
         # The reference reads alist, not QC shifts: expand for the C++ side.
@@ -191,112 +168,66 @@ def main() -> int:
         tmp.close()
         write_alist(matrix, tmp.name)
         matrix_path = Path(tmp.name)
-        assert feasible_batch_tile(matrix.qc) > 0, "fused QC gate shut"
-        engine_name = "qc/" + "+".join(schedules)
-        use_stream = False
     else:
         matrix = read_sparse_matrix_alist(matrix_path)
-        use_stream = not generic_plan_feasible(matrix)
-        engine_name = "stream" if use_stream else "generic"
+        schedules = ["flooding"]
     n = matrix.num_bit_nodes
+    frame_plan = [jnp.asarray(a) for a in make_frame_plan(n, HMatrixParams())]
     print(f"device: {jax.devices()[0]}  trials/point: {trials}  "
-          f"N={n}  engine={engine_name}",
+          f"N={n}  schedules={'+'.join(schedules)}",
           file=sys.stderr, flush=True)
 
-    rows = ["| alg | QBER | FER ref (95% CI) | FER tpu (95% CI) | "
-            "frame agreement | iters ref/tpu |",
+    rows = ["| alg | QBER | FER ref (95% CI) | FER jax (95% CI) | "
+            "frame agreement | iters ref/jax |",
             "|---|---|---|---|---|---|"]
     for alg, name, primary, secondary, qber in points:
-        # One evaluation path per schedule (qc mode) or a single path
-        # (generic/stream modes); the C++ side runs once per chunk and
-        # every path scores against it on the identical channels.
+        # One compiled driver step per schedule; the C++ side runs once per
+        # chunk and every step scores against it on the identical channels.
         paths = []
-        if use_qc:
-            from qkd_ldpc_v_tpu.ops.pallas_qc_stream import (
-                make_pallas_qc_stream_trial,
+        for schedule in schedules:
+            cfg = Config(
+                trials_number=trials,
+                decoding_algorithm=DecodingAlgorithm(alg),
+                decoding_alg_max_iterations=100,
+                batch_size=chunk,
+                schedule=schedule,
             )
-
-            for schedule in schedules:
-                stream_trial = None
-                if check_stream:
-                    stream_trial = make_pallas_qc_stream_trial(
-                        matrix.qc, DecodingAlgorithm(alg), 100, False,
-                        interpret=interpret, schedule=schedule,
-                    )
-                paths.append({
-                    "label": schedule,
-                    "trial": make_pallas_qc_trial(
-                        matrix.qc, DecodingAlgorithm(alg), 100, False,
-                        interpret=interpret, schedule=schedule,
-                    ),
-                    "stream_trial": stream_trial,
-                    # Documented streamed-engine contract: bit-exact for
-                    # layered (all algorithms) and non-adaptive flooding;
-                    # converged-keys equality for adaptive flooding.
-                    "stream_exact": schedule == "layered" or alg < 4,
-                })
-        elif use_stream:
-            paths.append({"label": "", "stream_trial": None,
-                          "trial": make_pallas_stream_trial(
-                              matrix, DecodingAlgorithm(alg), 100, False,
-                              interpret=interpret,
-                          )})
-        else:
-            paths.append({"label": "", "stream_trial": None,
-                          "trial": jax.jit(make_pallas_generic_trial(
-                              matrix, DecodingAlgorithm(alg), 100, False,
-                              batch_tile=8, interpret=interpret,
-                          ))})
-        for p in paths:
-            p.update(oc=0, ok=0, agree=0, oi_sum=0, s_ok_agree=0)
-        rng = np.random.default_rng(977 + alg)
+            paths.append({
+                "label": schedule if use_qc else "",
+                "step": get_step(matrix, cfg, chunk),
+                "oc": 0, "ok": 0, "agree": 0, "oi_sum": 0,
+            })
+        ne = exact_error_count(n, qber)
+        q = ne / n
+        scalars = (jnp.float32(q), jnp.int32(ne), jnp.float32(primary),
+                   jnp.float32(secondary), jnp.float32(0.0), *frame_plan)
         rc = rk = n_done = 0
         ri_sum = 0
+        chunk_index = 0
         t0 = time.perf_counter()
         while n_done < trials:
             take = min(chunk, trials - n_done)
-            alice, bob, q = gen_channel(rng, take, qber, n)
+            ka, ke, kp = trial_keys(977 + alg, 0, chunk_index)
+            alice = generate_keys(ka, chunk, n)
+            bob = inject_errors(ke, alice, ne)
             conv_r, keys_r, iters_r = run_reference(
-                matrix_path, alg, primary, secondary, alice, bob, q
+                matrix_path, alg, primary, secondary,
+                np.asarray(alice)[:take], np.asarray(bob)[:take], q,
             )
-            import jax.numpy as jnp
             ok_r = conv_r & keys_r
             rc += conv_r.sum(); rk += ok_r.sum()
             ri_sum += iters_r[conv_r].sum()
             for p in paths:
-                conv_o, keys_o, iters_o = p["trial"](
-                    jnp.asarray(alice), jnp.asarray(bob), q, primary,
-                    secondary, 0.0,
+                conv_o, keys_o, iters_o = (
+                    np.asarray(x)[:take]
+                    for x in p["step"](ka, ke, kp, *scalars)
                 )
-                conv_o = np.asarray(conv_o)
-                keys_o = np.asarray(keys_o)
-                if p["stream_trial"] is not None:
-                    conv_s, keys_s, iters_s = p["stream_trial"](
-                        jnp.asarray(alice), jnp.asarray(bob), q, primary,
-                        secondary, 0.0,
-                    )
-                    conv_s = np.asarray(conv_s)
-                    keys_s = np.asarray(keys_s)
-                    if p["stream_exact"]:
-                        np.testing.assert_array_equal(conv_s, conv_o)
-                        np.testing.assert_array_equal(keys_s, keys_o)
-                        np.testing.assert_array_equal(
-                            np.asarray(iters_s), np.asarray(iters_o)
-                        )
-                        p["s_ok_agree"] += take
-                    else:
-                        both = conv_s & conv_o
-                        np.testing.assert_array_equal(
-                            keys_s[both], keys_o[both]
-                        )
-                        p["s_ok_agree"] += (
-                            (conv_s & keys_s) == (conv_o & keys_o)
-                        ).sum()
                 ok_o = conv_o & keys_o
                 p["oc"] += conv_o.sum(); p["ok"] += ok_o.sum()
                 p["agree"] += (ok_r == ok_o).sum()
-                p["oi_sum"] += np.asarray(iters_o)[conv_o].sum()
+                p["oi_sum"] += iters_o[conv_o].sum()
             n_done += take
+            chunk_index += 1
             print(f"  {name} q={qber}: {n_done}/{trials} "
                   f"({time.perf_counter()-t0:.0f}s)",
                   file=sys.stderr, flush=True)
@@ -319,15 +250,10 @@ def main() -> int:
                 "alg": name, "qber": qber, "trials": n_done,
                 "schedule": p["label"] or None,
                 "fer_ref": round(fer_r, 5),
-                "fer_tpu": round(fer_o, 5),
+                "fer_jax": round(fer_o, 5),
                 "ci_overlap": overlap,
                 "frame_agreement": round(p["agree"] / n_done, 5),
             }
-            if p["stream_trial"] is not None:
-                record["stream_ok_agreement"] = round(
-                    p["s_ok_agree"] / n_done, 5
-                )
-                record["stream_exact"] = p["stream_exact"]
             print(json.dumps(record), flush=True)
     print("\n".join(rows))
     return 0

@@ -2,7 +2,7 @@
 
 The reference ships matrix suites and example configs
 (sparse_matrices/*, configs/*); this script generates our equivalents:
-QC-PEG base-graph matrices (the TPU-native format), small alist codes for
+QC-PEG base-graph matrices (this repo's QC format), small alist codes for
 the generic path, and example sweep configs in the reference JSON schema.
 """
 
@@ -49,11 +49,10 @@ def main() -> int:
     # QC-PEG suites mirroring the reference's rate ladders
     # (matrices_alist_{1k,10k,100k}_all span R = 0.36-0.92): committed,
     # deterministic, with .untp caches at 1k/10k. Column weight 4 wherever
-    # mb allows (the QC kernel needs mb >= cw), else 3.
+    # mb allows (a column of weight cw needs mb >= cw), else 3.
     qc_suite = []
-    # N = 1024 (Z = 128, nb = 8): the QC kernel needs Z % 128 == 0, which
-    # caps the 1k ladder at R = 0.625; higher 1k rates live in the alist
-    # suite below (generic kernel).
+    # N = 1024 (Z = 128, nb = 8): the 1k QC ladder stops at R = 0.625;
+    # higher 1k rates live in the alist suite below.
     for mb, cw, seed in ((5, 4, 31), (4, 4, 32), (3, 3, 33)):
         qc_suite.append((8, mb, 128, cw, seed))
     # N = 10240 (Z = 256, nb = 40): R = 0.35 .. 0.925.
@@ -77,9 +76,8 @@ def main() -> int:
         qc_suite.append((100, mb, 1024, cw, seed))
     # N = 102400 wide-lift variants (Z = 2048, nb = 50, CW = 3 — the
     # reference's own 100k column weight): half the block-edge count of the
-    # Z = 1024 ladder, sized for the streamed QC engine's unrolled sweep
-    # (ops/pallas_qc_stream.py). R=0.70 is the 100k flagship bench code;
-    # R=0.84 / R=0.50 extend the streamed-engine FER ladder.
+    # Z = 1024 ladder. R=0.70 is the 100k QC bench code; R=0.84 / R=0.50
+    # extend the 100k FER ladder.
     for mb, seed in ((15, 56), (8, 57), (25, 58)):
         qc_suite.append((50, mb, 2048, 3, seed))
 
@@ -104,11 +102,10 @@ def main() -> int:
         (1024, 82, 5, 65),                             # R = 0.92
         (10240, 2841, 4, 66),                          # R = 0.72 (the
         # reference's headline 10k operating point, regenerated here so the
-        # generic-kernel campaign runs without the reference mount)
+        # alist campaign runs from this repo alone)
         (102400, 31744, 3, 67),                        # R = 0.69 — the
         # reference's 100k shape (matrices_alist_100k_all: N=102400, CW=3),
-        # so the streaming engine's flagship workload and its tests run
-        # from this repo alone (round-2 review item)
+        # so the 100k workload and its tests run from this repo alone
     ]
     for n, m, cw, seed in alist_suite:
         mat = generate_regular_ldpc(n, m, cw, seed=seed)
@@ -200,7 +197,7 @@ def main() -> int:
             {"code_rate": 0.99, "QBER": {"begin": 0.005, "end": 0.01, "step": 0.005}},
         ],
         "enable_code_rate_adaptation": False,
-        "tpu": {"batch_size": 1024, "use_pallas": True},
+        "tpu": {"batch_size": 1024},
     }
     (cfg_dir / "example_qc_sweep.json").write_text(json.dumps(sweep, indent=2))
     print("wrote", cfg_dir / "example_qc_sweep.json")
@@ -273,7 +270,7 @@ def main() -> int:
             "trace_decoding_algorithm_llr": False,
             "enable_decoding_algorithm_msg_llr_threshold": False,
             "enable_code_rate_adaptation": False,
-            "tpu": {"batch_size": 4096, "use_pallas": True},
+            "tpu": {"batch_size": 4096},
         }
         cfg.update(over)
         return cfg
@@ -404,8 +401,8 @@ def main() -> int:
                 ],
             },
         ),
-        # 6. FER sweep on the 1k alist ladder through the fused generic
-        #    kernel (the reference's own code family / format)
+        # 6. FER sweep on the 1k alist ladder (the reference's own code
+        #    family / format)
         "campaign_fer_1k_alist.json": base_cfg(
             matrix_format=1,
             min_sum_normalized_parameters={
@@ -417,8 +414,8 @@ def main() -> int:
         ),
         # 7. FER sweep at the reference's largest production frame size
         #    (its config 100k shapes, configs_all/config 100k*.json) on the
-        #    committed 100k QC ladder through the streamed QC engine.
-        #    trials/batch sized for the ~1k-frames/s-per-point regime.
+        #    committed 100k QC ladder. A small batch keeps the 100k
+        #    flooding state ([E, B] messages) small.
         "campaign_fer_sweep_100k.json": base_cfg(
             trials_number=4096,
             min_sum_normalized_parameters={
@@ -427,7 +424,7 @@ def main() -> int:
                 "code_rate_alpha_maps": alpha_maps,
             },
             code_rate_QBER_ranges=fer_ranges,
-            tpu={"batch_size": 256, "use_pallas": True},
+            tpu={"batch_size": 256},
         ),
     }
     for name, cfg in campaigns.items():

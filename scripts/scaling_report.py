@@ -1,8 +1,8 @@
 """Data-mesh scaling report: frames/s vs device count.
 
 Runs the same Monte-Carlo combination over 1, 2, 4, ... devices of the
-available fleet (real TPU chips on a pod slice, or the virtual CPU mesh for
-mechanics validation) and reports throughput and parallel efficiency.
+available fleet (the GPUs of a host, or the virtual CPU mesh for mechanics
+validation) and reports throughput and parallel efficiency.
 
 Usage:
   python scripts/scaling_report.py [--trials 4096] [--qber 0.03]

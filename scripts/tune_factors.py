@@ -1,9 +1,9 @@
-"""Tune scaling factors for the shipped QC-PEG codes on the real TPU.
+"""Tune scaling factors for the shipped QC-PEG codes on the device.
 
 Sweeps the min-sum family's factors (NMSA alpha, OMSA beta, ANMSA alpha x nu,
 AOMSA beta x sigma) on a QC code at its working QBER through the production
-driver path. Factors are traced scalars in the fused kernel, so the whole
-sweep costs ONE compile per algorithm. Prints a markdown table of
+driver path. Factors are traced scalars in the compiled step, so the
+whole sweep costs ONE compile per algorithm. Prints a markdown table of
 FER / mean converged iterations per point; use it to pick the defaults
 shipped in configs/ (the reference leaves factor choice to the user's
 config sweeps - configs_all/ "NMSA optimization" campaigns).
@@ -72,7 +72,6 @@ def main() -> int:
             decoding_alg_max_iterations=100,
             r_qber_ranges=(RQBERRange(0.99, args.qber, args.qber, 0.01),),
             batch_size=args.trials,
-            use_pallas=True,
         )
         best = None
         for i, (prim, sec) in enumerate(grids[name]):

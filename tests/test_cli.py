@@ -80,3 +80,5 @@ def test_cli_help_config(capsys):
     out = capsys.readouterr().out
     assert "decoding_algorithm" in out
     assert "matrix_format" in out
+    # The retired engine keys are not part of the schema any more.
+    assert "use_pallas" not in out and "force_engine" not in out

@@ -197,16 +197,50 @@ def test_tpu_extension_block(tmp_path):
     c = parse_config_data(write_cfg(tmp_path, cfg))
     assert c.batch_size == 256
     assert c.dtype == "float64"
-    assert c.force_engine == ""
+    assert c.schedule == "flooding"
+    assert not hasattr(c, "force_engine")
+    assert not hasattr(c, "use_pallas")
 
 
 def test_tpu_force_engine_validated(tmp_path):
-    cfg = minimal_config(tpu={"force_engine": "qc_stream"})
-    c = parse_config_data(write_cfg(tmp_path, cfg))
-    assert c.force_engine == "qc_stream"
+    cfg = minimal_config(tpu={"force_engine": "xla"})
+    parse_config_data(write_cfg(tmp_path, cfg))
     bad = minimal_config(tpu={"force_engine": "cuda"})
     with pytest.raises(ConfigError, match="force_engine"):
         parse_config_data(write_cfg(tmp_path, bad))
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_use_pallas_parses_and_warns(tmp_path, caplog, value):
+    """Older configs carry tpu.use_pallas: it still parses, selects
+    nothing, and says so once."""
+    import logging
+
+    cfg = minimal_config(tpu={"batch_size": 64, "use_pallas": value})
+    with caplog.at_level(logging.WARNING, logger="qkd_ldpc_v_tpu"):
+        c = parse_config_data(write_cfg(tmp_path, cfg))
+    assert c.batch_size == 64
+    msgs = [r.getMessage() for r in caplog.records]
+    assert len(msgs) == 1 and "use_pallas selects nothing" in msgs[0]
+
+
+@pytest.mark.parametrize("value", ["", "xla"])
+def test_force_engine_xla_accepted(tmp_path, caplog, value):
+    import logging
+
+    cfg = minimal_config(tpu={"force_engine": value})
+    with caplog.at_level(logging.WARNING, logger="qkd_ldpc_v_tpu"):
+        c = parse_config_data(write_cfg(tmp_path, cfg))
+    assert c.schedule == "flooding"
+    assert not caplog.records
+
+
+@pytest.mark.parametrize("engine", ["qc", "qc_stream", "generic", "stream"])
+def test_force_engine_removed_engines_rejected(tmp_path, engine):
+    cfg = minimal_config(tpu={"force_engine": engine})
+    with pytest.raises(ConfigError, match="removed") as err:
+        parse_config_data(write_cfg(tmp_path, cfg))
+    assert repr(engine) in str(err.value)
 
 
 @pytest.mark.skipif(not reference_available(), reason="reference assets absent")

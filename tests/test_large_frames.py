@@ -1,9 +1,7 @@
 """N=102400 operation — the reference's largest production frames
 (sparse_matrices/matrices_alist_100k_all, SURVEY.md §5's long-context
-analogue). The fused Pallas kernels gate themselves out at this size
-(edge space ~2400 rows >> MAX_TILES*128); the generic XLA decoder and the
-edge-sharded mesh decoder carry it. TPU throughput at this size is recorded
-in BASELINE.md (scripts/bench_100k.py)."""
+analogue). The generic XLA decoder and the edge-sharded mesh decoder carry
+it."""
 
 import os
 
@@ -66,13 +64,6 @@ def test_100k_frame_decodes(matrix_100k, case_100k):
     res = decode(llr, syn, 0.8, 1.0, 0.0)
     assert np.asarray(res.syndromes_match).all()
     np.testing.assert_array_equal(np.asarray(res.decision), np.asarray(alice))
-
-
-def test_100k_pallas_gate_rejects(matrix_100k):
-    """The fused generic kernel must refuse a 300k-edge space, not OOM."""
-    from qkd_ldpc_v_tpu.ops.pallas_generic import generic_plan_feasible
-
-    assert not generic_plan_feasible(matrix_100k)
 
 
 def test_100k_edge_sharded_matches(matrix_100k, case_100k):

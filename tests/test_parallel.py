@@ -156,26 +156,6 @@ def test_reduce_mode_masks_short_final_chunk(medium_matrix):
     assert reduced.iter_success_mean == pytest.approx(gathered.iter_success_mean)
 
 
-def test_mesh_with_pallas_interpret(medium_matrix):
-    """The data mesh composes with the fused (interpret-mode) kernel: each
-    device runs its own pallas grid over its shard."""
-    from qkd_ldpc_v_tpu.models.qc import generate_qc_peg
-
-    matrix = generate_qc_peg(8, 4, 128, 3, seed=3).to_hmatrix()
-    cfg = _cfg(
-        trials_number=16,
-        decoding_algorithm=DecodingAlgorithm.NMSA,
-        use_pallas=True,
-    )
-    mesh = make_data_mesh(2)
-    comb = SimCombination(0.02, HMatrixParams(), ScalingFactors(primary=0.75))
-    res = run_combination(
-        matrix, comb, cfg, sim_number=0, step_factory=mesh_step_factory(mesh)
-    )
-    assert 0.0 <= res.ratio_trials_success_ldpc <= 1.0
-    assert res.iter_success_mean > 0
-
-
 def test_scaling_report_script_runs():
     """CI-style exercise of scripts/scaling_report.py on the CPU mesh."""
     import json
@@ -230,34 +210,3 @@ def test_edge_sharded_decoder_matches_unsharded(medium_matrix):
     np.testing.assert_array_equal(
         np.asarray(rs.iterations), np.asarray(rp.iterations)
     )
-
-
-def test_mesh_factory_with_qc_stream_engine(monkeypatch):
-    """The mesh path routes through the streamed QC engine when the fused
-    kernel's gate is shut, and agrees with the single-device run."""
-    from qkd_ldpc_v_tpu import simulation as sim
-    from qkd_ldpc_v_tpu.models.qc import generate_qc_peg
-    import qkd_ldpc_v_tpu.ops.pallas_qc as _pk
-
-    matrix = generate_qc_peg(8, 4, 128, column_weight=3, seed=7).to_hmatrix()
-    cfg = _cfg(
-        trials_number=32,
-        decoding_algorithm=DecodingAlgorithm.NMSA,
-        use_pallas=True,
-    )
-    comb = SimCombination(
-        0.02, HMatrixParams(), ScalingFactors(primary=0.8)
-    )
-    monkeypatch.setattr(sim, "_STEP_CACHE", type(sim._STEP_CACHE)())
-    monkeypatch.setattr(_pk, "feasible_batch_tile", lambda *_a, **_k: 0)
-    assert sim.pallas_engine(matrix, cfg) == "qc_stream"
-    mesh = make_data_mesh()
-    meshed = run_combination(
-        matrix, comb, cfg, sim_number=0,
-        step_factory=mesh_step_factory(mesh),
-    )
-    # The mesh path folds per-device PRNG keys (different trials than the
-    # single-device path by design) — assert plausibility like the other
-    # mesh tests: at QBER 0.02 this code decodes essentially always.
-    assert meshed.ratio_trials_success_ldpc > 0.9
-    assert 0 < meshed.iter_success_mean <= 40

@@ -494,32 +494,6 @@ class TestCheckpointResume:
         assert len(load_checkpoint(ckpt, "aaaa")) == 1
 
 
-class TestPallasDriverPath:
-    def test_use_pallas_qc_matches_generic(self):
-        """cfg.use_pallas routes QC matrices through the fused kernel
-        (interpret mode on CPU) with identical statistics."""
-        from qkd_ldpc_v_tpu.models.qc import generate_qc_peg
-
-        matrix = generate_qc_peg(8, 4, 128, 3, seed=2).to_hmatrix()
-        comb = SimCombination(0.03, HMatrixParams(), ScalingFactors(primary=0.75))
-        base = dict(
-            trials_number=16,
-            simulation_seed=5,
-            decoding_algorithm=DecodingAlgorithm.NMSA,
-            decoding_alg_max_iterations=30,
-            r_qber_ranges=(RQBERRange(0.99, 0.03, 0.03, 0.01),),
-        )
-        r_pallas = run_combination(
-            matrix, comb, Config(**base, use_pallas=True), sim_number=0
-        )
-        r_generic = run_combination(
-            matrix, comb, Config(**base), sim_number=0
-        )
-        assert r_pallas.ratio_trials_success_ldpc == r_generic.ratio_trials_success_ldpc
-        assert r_pallas.iter_success_mean == r_generic.iter_success_mean
-        assert r_pallas.iter_success_max == r_generic.iter_success_max
-
-
 class TestDriverEdgeCases:
     def test_privacy_plus_rate_adapt_through_driver(self, matrix_file):
         """Privacy maintenance on top of rate adaptation: the out-key length
